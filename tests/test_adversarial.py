@@ -1,4 +1,4 @@
-"""Adversarial-input and determinism coverage (VERDICT r1 item 8).
+"""Adversarial-input and determinism coverage.
 
 Malformed input must always surface as a typed codec error (or, where the
 corruption yields a stream canonical zlib itself accepts, produce the
@@ -133,7 +133,7 @@ def test_corruption_fuzz_vs_oracle():
 
 
 def test_corruption_fuzz_device_pipeline():
-    """A smaller sweep through the TPU scan pipeline."""
+    """A smaller sweep through the device scan pipeline."""
     rng = np.random.default_rng(9)
     data = b"device fuzz " * 200
     comp = bytearray(pyzlib.compress(data, 6))
@@ -172,7 +172,7 @@ def test_determinism_repeat_runs():
 
 
 def test_indexed_fuzz_batched_lanes():
-    """VERDICT r3 #7 (indexed XLA path): >=1000 corruptions batched as
+    """Indexed XLA path: >=1000 corruptions batched as
     parallel anchor lanes — one corruption per 4 KiB anchor span per
     round, so each dispatch carries ~70 simultaneous corruptions.  Oracle
     per corrupted span: the indexed decode either raises a typed error,

@@ -1,4 +1,4 @@
-"""TPU deflate pipeline vs oracle (CPython zlib) and round-trips."""
+"""Device deflate pipeline vs oracle (CPython zlib) and round-trips."""
 import zlib as pyzlib
 from pathlib import Path
 
@@ -67,11 +67,11 @@ def test_deflate_size_competitive():
 
 
 def test_turbo_size_bar():
-    """Per-profile size bars are explicit, not silent (VERDICT r2 #6).
+    """Per-profile size bars are explicit, not silent.
 
     The turbo profile trades ratio for kernel-decodable structure (4 KiB
     window resets, 9-bit code cap, one shared table pair, split far
-    matches) — a documented decision.  Fence per VERDICT r3 #7: the
+    matches) — a documented decision.  Fence per the
     measured size (201,595 B on raw.bin) + 0.5% drift budget, so ratio
     regressions >0.5% fail CI instead of hiding under the old
     zlib-level-2 ceiling.  The DEFAULT profile is the one that must beat

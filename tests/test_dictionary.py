@@ -68,9 +68,9 @@ def test_compress_batch_single_device():
 
 
 def test_indexed_inflate_with_dictionary():
-    """VERDICT r1 item 9: index= and dictionary= compose — the first
+    """index= and dictionary= compose — the first
     group's resolve prefix is seeded with the dictionary tail."""
-    from zlibes_tpu.codec.inflate_pipeline import inflate as tpu_inflate
+    from zlibes_tpu.codec.inflate_pipeline import inflate as dev_inflate
     from zlibes_tpu.spec import refmodel as rm
 
     data = (DATA + bytes(np.random.default_rng(5).integers(
@@ -79,14 +79,14 @@ def test_indexed_inflate_with_dictionary():
                              anchor_every=1024, dictionary=DICT)
     d = pyzlib.decompressobj(zdict=DICT)
     assert d.decompress(comp) == data  # oracle accepts the FDICT member
-    assert tpu_inflate(comp, index=index, dictionary=DICT) == data
+    assert dev_inflate(comp, index=index, dictionary=DICT) == data
     # wrong dictionary must be rejected via the DICTID check
     with pytest.raises(errors.HeaderError):
-        tpu_inflate(comp, index=index, dictionary=b"wrong dict")
+        dev_inflate(comp, index=index, dictionary=b"wrong dict")
 
 
 def test_single_stream_dictionary_device_path():
-    """VERDICT r3 #6: deflate(dictionary=) runs the device pipeline (the
+    """deflate(dictionary=) runs the device pipeline (the
     first block's matcher sees the dictionary as a context prefix), not
     the host refmodel; the dictionary must still help."""
     raw = RAW[:100000]

@@ -1,4 +1,4 @@
-"""TPU inflate pipeline vs oracle (CPython zlib) and the reference model."""
+"""Device inflate pipeline vs oracle (CPython zlib) and the reference model."""
 import zlib as pyzlib
 from pathlib import Path
 

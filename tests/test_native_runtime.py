@@ -87,7 +87,7 @@ def _scan_tuple(comp, **kw):
 
 def test_parallel_scan_bit_identical():
     """Speculative-parallel scan splices spans bit-identically to the
-    serial scan across stream shapes (VERDICT r3 #4)."""
+    serial scan across stream shapes."""
     import numpy as np
     data = RAW * 6  # ~2.9 MB in
     for lvl in (1, 6, 9):

@@ -55,7 +55,7 @@ def test_parallel_single_device_mesh():
 
 @needs_multidevice
 def test_parallel_dynamic_deflate_ratio():
-    """VERDICT r1 item 6: the sharded path uses dynamic tables (one shared
+    """the sharded path uses dynamic tables (one shared
     psum-combined pair) and lands near the single-device pipeline ratio."""
     import zlib as pyzlib
 
@@ -74,7 +74,7 @@ def test_parallel_dynamic_deflate_ratio():
 
 @needs_multidevice
 def test_parallel_turbo_roundtrip():
-    """VERDICT r2 #4: the FLAGSHIP (turbo) pipeline under the mesh — the
+    """the FLAGSHIP (turbo) pipeline under the mesh — the
     sharded encode runs the two-phase matcher + Pallas lock-step selection
     + scatter-free pack; the sharded inflate runs extract/shift/
     decode_turbo/resolve_turbo on every device's lane shard."""

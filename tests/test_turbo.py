@@ -1,17 +1,17 @@
-"""Turbo profile: shared-table encode + Pallas lock-step inflate kernels.
+"""Turbo profile: shared-table encode + anchor-lane inflate.
 
 Oracle strategy per SURVEY.md §4: CPython zlib must accept every stream we
-emit; our turbo inflate must reproduce the input bit-exactly.  Kernels run
-in Pallas interpret mode on the CPU test mesh.
+emit; our turbo inflate must reproduce the input bit-exactly.
 """
 import zlib
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from zlibes_tpu.codec import deflate_pipeline as dp
 from zlibes_tpu.codec import inflate_pipeline as ip
-from zlibes_tpu.codec.turbo import inflate_raw_turbo
+from zlibes_tpu.codec.lanes import inflate_raw_lanes
 from zlibes_tpu.config import CodecConfig
 from zlibes_tpu.spec.errors import CorruptError
 
@@ -52,7 +52,7 @@ def test_turbo_stream_is_conformant(turbo_stream):
 
 def test_turbo_inflate_roundtrip(turbo_stream):
     data, comp, index = turbo_stream
-    out = inflate_raw_turbo(comp, index)
+    out = inflate_raw_lanes(comp, index)
     assert out.tobytes() == data
 
 
@@ -67,7 +67,7 @@ def test_turbo_rle_and_long_matches():
     data = b"x" * 5000 + b"yz" * 3000 + b"x" * 300
     comp, index = dp.deflate(data, with_index=True, config=CFG, block_size=BS)
     assert zlib.decompress(comp) == data
-    out = inflate_raw_turbo(comp, index)
+    out = inflate_raw_lanes(comp, index)
     assert out.tobytes() == data
 
 
@@ -76,7 +76,7 @@ def test_turbo_incompressible():
     data = rng.integers(0, 256, 12000, dtype=np.uint8).tobytes()
     comp, index = dp.deflate(data, with_index=True, config=CFG, block_size=BS)
     assert zlib.decompress(comp) == data
-    out = inflate_raw_turbo(comp, index)
+    out = inflate_raw_lanes(comp, index)
     assert out.tobytes() == data
 
 
@@ -104,53 +104,28 @@ def test_turbo_corruption_detected(turbo_stream):
 
 
 def test_turbo_rejects_non_turbo_index():
+    """A default-profile index claiming the turbo profile fails the turbo
+    anchor geometry (a pair per 512 B segment)."""
     data = _mixed_data(20000)
     comp, index = dp.deflate(data, with_index=True, block_size=BS)
     assert not index.turbo
+    index.turbo = True
     with pytest.raises(CorruptError):
-        inflate_raw_turbo(comp, index)
-
-
-def test_select_kernel_matches_xla_path():
-    """The Pallas selection kernel must produce byte-identical streams to
-    the XLA select_tokens path (exact-greedy semantics preserved)."""
-    import jax.numpy as jnp
-
-    from zlibes_tpu.codec.deflate_pipeline import _select_turbo_glue
-    from zlibes_tpu.ops.lz77 import find_matches, select_tokens
-
-    rng = np.random.default_rng(11)
-    data = _mixed_data(3 * BS, seed=11)
-    B, N = 2, BS
-    blk = np.zeros((B, N + 8), np.uint8)
-    nv = np.zeros(B, np.int32)
-    arr = np.frombuffer(data, np.uint8)
-    for i in range(B):
-        c = arr[i * N : (i + 1) * N]
-        blk[i, : c.size] = c
-        nv[i] = c.size
-    m = find_matches(jnp.asarray(blk), jnp.asarray(nv), N=N, S=4, J=4,
-                     reset=4096)
-    a = select_tokens(jnp.asarray(blk), m, jnp.asarray(nv), N=N,
-                      SEG_SIZE=512, lazy=True, split_far=True)
-    b = _select_turbo_glue(jnp.asarray(blk), m, jnp.asarray(nv), N=N,
-                           SEG_SIZE=512, lazy=True, split_far=True)
-    for x, y in zip(a, b):
-        assert np.array_equal(np.asarray(x), np.asarray(y))
+        inflate_raw_lanes(comp, index)
 
 
 def test_pack_payload_turbo_matches_pack_payload_fast():
-    """The Pallas field kernel + sort-placement packer must be bit-exact
-    vs the one-hot reference packer on real tokens (incl. zero-run data)."""
+    """The shared-table field lookup + sort-placement packer must be
+    bit-exact vs the one-hot reference packer on real tokens (incl.
+    zero-run data)."""
     import jax.numpy as jnp
 
     from zlibes_tpu.codec.deflate_pipeline import (_encode_tables,
-                                                   _select_turbo_glue,
                                                    package_merge_np)
     from zlibes_tpu.ops.deflate_kernel import (pack_payload_fast,
                                                pack_payload_turbo,
                                                token_symbols)
-    from zlibes_tpu.ops.lz77 import find_matches
+    from zlibes_tpu.ops.lz77 import find_matches, select_tokens
     from zlibes_tpu.spec import constants as C
 
     cfg = CodecConfig.turbo(candidates=4, probe_words=4)
@@ -168,9 +143,9 @@ def test_pack_payload_turbo_matches_pack_payload_fast():
     m = find_matches(jnp.asarray(blk), jnp.asarray(nv), N=N,
                      S=cfg.probe_words, J=cfg.candidates,
                      reset=cfg.chunk_reset, two_phase=True)
-    tv, td, cnt = _select_turbo_glue(jnp.asarray(blk), m, jnp.asarray(nv),
-                                     N=N, SEG_SIZE=cfg.seg_size, lazy=True,
-                                     split_far=True)
+    tv, td, cnt = select_tokens(jnp.asarray(blk), m, jnp.asarray(nv),
+                                N=N, SEG_SIZE=cfg.seg_size, lazy=True,
+                                split_far=True)
     lsym, dsym, valid, llf, dfq = token_symbols(tv, td, cnt, nseg=nseg)
     llt = np.asarray(llf).astype(np.int64).sum(0)
     dft = np.asarray(dfq).astype(np.int64).sum(0)
@@ -200,20 +175,22 @@ def test_pack_payload_turbo_matches_pack_payload_fast():
 
 
 def test_turbo_fuzz_batched_lanes():
-    """VERDICT r3 #7: >=1000 corruptions through the Pallas turbo path —
-    batched as parallel decode lanes (one corruption per 512 B anchor
-    segment => each dispatch carries hundreds of simultaneous
-    corruptions).  Oracle per corrupted segment: the kernel either flags
-    the lane (err / ran-past-anchor — Huffman codes self-synchronize, so
-    many flips re-sync to the right end bit) or produces wrong bytes
-    there (which the stream-level Adler turns into ChecksumError — also
-    asserted via the public inflate)."""
-    from zlibes_tpu.codec import turbo as tb
+    """>=1000 corruptions through the turbo lane path — batched as
+    parallel decode lanes (one corruption per 512 B anchor segment => each
+    dispatch carries hundreds of simultaneous corruptions).  Oracle per
+    corrupted segment: the decode either flags the lane (err / ran past
+    its anchor — Huffman codes self-synchronize, so many flips re-sync to
+    the right end bit) or produces wrong bytes there (which the
+    stream-level Adler turns into ChecksumError — also asserted via the
+    public inflate)."""
+    from zlibes_tpu.codec.lanes import LanePlan, stream_words
+    from zlibes_tpu.ops import lane_decode as ld
     from zlibes_tpu.spec.errors import ChecksumError
 
     data = _mixed_data(260000, seed=11)
     comp, index = dp.deflate(data, with_index=True, config=CFG,
                              block_size=BS)
+    plan = LanePlan.build(comp, index)
     arr = np.frombuffer(data, np.uint8)
     rng = np.random.default_rng(5)
     total_corruptions = 0
@@ -235,30 +212,22 @@ def test_turbo_fuzz_batched_lanes():
         total_corruptions += len(corrupted_segs)
         with pytest.raises((CorruptError, ChecksumError)):
             ip.inflate(bytes(bad), index=index)
-        # per-lane oracle: decode the corrupted stream unchecked and
-        # compare each 256 B half-segment against the true bytes
-        plan = tb.TurboPlan.build(bytes(bad), index)
-        fetched = tb.tk.extract_lanes(plan.words, plan.starts_w)
-        lanes = tb.tk.shift_lanes(fetched, plan.shift_idx, LB=plan.LB)
-        planes = tb._to_planes(lanes, LB=plan.LB)
-        tg, mg = tb.tk.decode_turbo(planes, plan.bit0, plan.endb,
-                                    plan.lt, plan.dt, T=plan.T, LB=plan.LB)
-        meta = np.asarray(tb._from_grid(mg, LB=plan.LB))
+        # per-lane oracle: decode the corrupted payload (with the clean
+        # stream's tables — a flip may hit a block header) unchecked and
+        # compare each 256 B half-segment against the true bytes; every
+        # block row but the last is full, so segment k owns lanes 2k, 2k+1
+        tokens, meta = ld.decode_lanes(stream_words(bytes(bad)), plan.lanes,
+                                       plan.tables, T=plan.T)
+        meta = np.asarray(meta)
         flagged = ((meta[2] > 0) | (meta[3] > 0)
-                   | (meta[1] != plan.lane_end_check))
-        # lanes decode in chunk-sorted order: original lane j (chunk
-        # j//16, sub j%16) sits at decoded slot chunk_inv[j//16]*16+j%16
-        cinv = np.asarray(plan.chunk_inv)
-        jj = np.arange(plan.L_pad)
-        flagged_orig = flagged[cinv[jj // 16] * 16 + jj % 16]
-        t16, s16 = tb._glue_tokens(tg, mg[0], plan.base_g,
-                                   T=plan.T, C_pad=plan.C_pad, LB=plan.LB)
-        rows = np.asarray(tb.tk.resolve_turbo(t16, s16))[cinv]
-        out = rows.reshape(-1)[: plan.total_out]
+                   | (meta[1] != np.asarray(plan.lanes[2])))
+        rows, _lb, _err = ld.resolve_lanes(tokens, jnp.asarray(meta[0]),
+                                           plan.lane_out, plan.row_len,
+                                           O=plan.O)
+        out = np.asarray(rows)[: plan.total_out]
         ndiff = out != arr
         for k in corrupted_segs:
-            lanes_bad = bool(flagged_orig[2 * k]) or bool(
-                flagged_orig[min(2 * k + 1, flagged_orig.size - 1)])
+            lanes_bad = bool(flagged[2 * k]) or bool(flagged[2 * k + 1])
             seg_bytes_bad = bool(ndiff[512 * k : 512 * (k + 1)].any())
             detected += int(lanes_bad or seg_bytes_bad)
     assert total_corruptions >= 1000
@@ -275,12 +244,11 @@ def test_pack_dense_matches_block_buffers():
     import jax.numpy as jnp
 
     from zlibes_tpu.codec.deflate_pipeline import (_encode_tables,
-                                                   _select_turbo_glue,
                                                    package_merge_np)
     from zlibes_tpu.ops.deflate_kernel import (pack_payload_turbo,
                                                pack_payload_turbo_dense,
                                                token_symbols)
-    from zlibes_tpu.ops.lz77 import find_matches
+    from zlibes_tpu.ops.lz77 import find_matches, select_tokens
     from zlibes_tpu.spec import constants as C
 
     cfg = CodecConfig.turbo(candidates=4, probe_words=4)
@@ -298,9 +266,9 @@ def test_pack_dense_matches_block_buffers():
     m = find_matches(jnp.asarray(blk), jnp.asarray(nv), N=N,
                      S=cfg.probe_words, J=cfg.candidates,
                      reset=cfg.chunk_reset, two_phase=True)
-    tv, td, cnt = _select_turbo_glue(jnp.asarray(blk), m, jnp.asarray(nv),
-                                     N=N, SEG_SIZE=cfg.seg_size, lazy=True,
-                                     split_far=True)
+    tv, td, cnt = select_tokens(jnp.asarray(blk), m, jnp.asarray(nv),
+                                N=N, SEG_SIZE=cfg.seg_size, lazy=True,
+                                split_far=True)
     _ls, _ds, valid, llf, dfq = token_symbols(tv, td, cnt, nseg=nseg)
     llt = np.asarray(llf).astype(np.int64).sum(0)
     dft = np.asarray(dfq).astype(np.int64).sum(0)

@@ -1,8 +1,8 @@
 """Per-level (size, wall, device-stage) table on tests/golden/raw.bin.
 
-VERDICT r3 #8: the reference has no levels, so the level contract is ours
+The reference has no levels, so the level contract is ours
 to keep coherent — this records what each preset actually buys.  Run on
-the real chip for meaningful times; sizes are deterministic everywhere.
+the GPU for meaningful times; sizes are deterministic everywhere.
 
   python tools/bench_levels.py            # all levels 0-9 + turbo
   python tools/bench_levels.py 1 6 9      # subset

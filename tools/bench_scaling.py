@@ -1,7 +1,7 @@
 """Scaling benchmark: block-parallel codec GB/s at 1/2/4/8 mesh devices.
 
 Runs on the virtual CPU mesh (absolute numbers are CPU-bound and
-meaningless vs TPU; the *shape* of the scaling curve is the artifact —
+meaningless for an accelerator; the *shape* of the scaling curve is the artifact —
 near-linear device scaling of the sharded deflate/inflate steps).
 Emits one JSON line; paste the table into BASELINE.md.
 
@@ -28,7 +28,7 @@ import numpy as np
 
 
 def main():
-    """Measures the TURBO pipeline under the mesh (VERDICT r2 #4): the
+    """Measures the TURBO pipeline under the mesh: the
     sharded two-phase match + Pallas lock-step select + scatter-free pack
     on the encode side, and the sharded extract/decode_turbo/resolve_turbo
     lanes on the inflate side.  Pass ``--legacy`` for the round-1 XLA
@@ -97,7 +97,7 @@ def main():
         # host-side overhead growth with mesh size: staging (array
         # placement callbacks), dispatch (jit call until handles exist),
         # readback (fetch + splice inputs), host_splice (byte assembly),
-        # dispatch count, and first-call compile seconds (VERDICT r3 #9)
+        # dispatch count, and first-call compile seconds
         "host_overhead": {str(k): v for k, v in overhead.items()},
     }))
 

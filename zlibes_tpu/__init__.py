@@ -1,8 +1,8 @@
-"""zlibes_tpu — a TPU-native zlib/DEFLATE codec framework (JAX/XLA/Pallas).
+"""zlibes_tpu — a zlib/DEFLATE codec framework in JAX (XLA and Pallas).
 
 Brand-new implementation with the capabilities of zprodev/zlib.es
 (RFC 1950 container + RFC 1951 DEFLATE, two-function API), re-designed
-TPU-first: block-data-parallel encode/decode over device meshes, batched
+for accelerators: block-data-parallel encode/decode over device meshes, batched
 table-driven Huffman decode, vectorized LZ77 match finding, scan-based
 bit packing, and tiled Adler-32 reduction.
 

@@ -1,12 +1,16 @@
 """Public API (reference analog src/zlib.ts:11,25 — two functions), plus
-the TPU-native extensions: indexed streams and device-resident output.
+the device extensions: indexed streams and device-resident output.
+
+``backend="device"`` (the default) runs the JAX
+pipelines; ``backend="refmodel"`` runs the NumPy reference model.
 """
 from __future__ import annotations
 
 from ..spec import refmodel as _rm
+from . import deflate_pipeline as _dp
+from . import inflate_pipeline as _ip
 
-
-_BACKENDS = ("auto", "tpu", "refmodel")
+_BACKENDS = ("device", "refmodel")
 
 
 def _check_backend(backend: str) -> None:
@@ -14,19 +18,7 @@ def _check_backend(backend: str) -> None:
         raise ValueError(f"unknown backend {backend!r}; expected one of {_BACKENDS}")
 
 
-def _tpu_modules():
-    try:
-        from . import deflate_pipeline
-    except ImportError:
-        deflate_pipeline = None
-    try:
-        from . import inflate_pipeline
-    except ImportError:
-        inflate_pipeline = None
-    return deflate_pipeline, inflate_pipeline
-
-
-def deflate(data: bytes, *, backend: str = "auto", block_size: int | None = None,
+def deflate(data: bytes, *, backend: str = "device", block_size: int | None = None,
             level: int | None = None, config=None, stats=None,
             dictionary: bytes | None = None) -> bytes:
     """Compress ``data`` into a zlib stream (header 0x78 0x9C + Adler-32).
@@ -38,37 +30,33 @@ def deflate(data: bytes, *, backend: str = "auto", block_size: int | None = None
     _check_backend(backend)
     kw = {"block_size": block_size} if block_size else {}
     if backend != "refmodel":
-        dp, _ = _tpu_modules()
-        if dp is not None:
-            return dp.deflate(bytes(data), level=level, config=config,
-                              stats=stats, dictionary=dictionary, **kw)
-        if backend == "tpu":
-            raise RuntimeError("TPU pipeline unavailable")
+        return _dp.deflate(bytes(data), level=level, config=config,
+                           stats=stats, dictionary=dictionary, **kw)
     if dictionary is not None:
         return _rm.deflate(bytes(data), dictionary=dictionary, **kw)
     return _rm.deflate(bytes(data), **kw)
 
 
-def deflate_indexed(data: bytes, *, backend: str = "auto",
-                    block_size: int | None = None):
+def deflate_indexed(data: bytes, *, backend: str = "device",
+                    block_size: int | None = None, level: int | None = None,
+                    config=None):
     """Compress and return (zlib_bytes, StreamIndex).
 
-    The index (block layout + ~4 KiB decode anchors) unlocks
-    anchor-parallel ``inflate(..., index=)`` and seekable access.  The
-    stream itself is plain conformant zlib — the index is a sidecar.
+    The index (block layout + decode anchors) unlocks anchor-parallel
+    ``inflate(..., index=)`` and seekable access.  The stream itself is
+    plain conformant zlib — the index is a sidecar.  ``level`` and
+    ``config`` select the encoder preset as in ``deflate`` (e.g.
+    ``config=CodecConfig.turbo()``).
     """
     _check_backend(backend)
     kw = {"block_size": block_size} if block_size else {}
     if backend != "refmodel":
-        dp, _ = _tpu_modules()
-        if dp is not None:
-            return dp.deflate(bytes(data), with_index=True, **kw)
-        if backend == "tpu":
-            raise RuntimeError("TPU pipeline unavailable")
+        return _dp.deflate(bytes(data), with_index=True, level=level,
+                           config=config, **kw)
     return _rm.deflate(bytes(data), with_index=True, **kw)
 
 
-def inflate(data: bytes, *, backend: str = "auto", verify_checksum: bool = True,
+def inflate(data: bytes, *, backend: str = "device", verify_checksum: bool = True,
             index=None, dictionary: bytes | None = None) -> bytes:
     """Decompress a zlib stream, verifying the Adler-32 trailer.
 
@@ -79,12 +67,8 @@ def inflate(data: bytes, *, backend: str = "auto", verify_checksum: bool = True,
     """
     _check_backend(backend)
     if backend != "refmodel":
-        _, ip = _tpu_modules()
-        if ip is not None:
-            return ip.inflate(bytes(data), verify_checksum=verify_checksum,
-                              index=index, dictionary=dictionary)
-        if backend == "tpu":
-            raise RuntimeError("TPU pipeline unavailable")
+        return _ip.inflate(bytes(data), verify_checksum=verify_checksum,
+                           index=index, dictionary=dictionary)
     return _rm.inflate(bytes(data), verify_checksum=verify_checksum,
                        dictionary=dictionary)
 
@@ -93,13 +77,10 @@ def inflate_to_device(data: bytes, index):
     """Decompress straight into device memory (no device→host transfer).
 
     Returns a list of (device_array, out_offset, nbytes) spans covering the
-    output.  This is the TPU-native consumption path — e.g. decompressing
-    dataset shards directly into HBM for training input pipelines.
+    output — e.g. decompressing dataset shards directly into device memory
+    for training input pipelines.
     """
-    _, ip = _tpu_modules()
-    if ip is None:
-        raise RuntimeError("TPU pipeline unavailable")
-    return ip.inflate_to_device(bytes(data), index)
+    return _ip.inflate_to_device(bytes(data), index)
 
 
 def inflate_range(data: bytes, index, start: int, length: int) -> bytes:
@@ -109,10 +90,7 @@ def inflate_range(data: bytes, index, start: int, length: int) -> bytes:
     decodes just the self-contained blocks covering the range, so cost is
     O(length + block_size) regardless of stream size.
     """
-    _, ip = _tpu_modules()
-    if ip is None:
-        raise RuntimeError("TPU pipeline unavailable")
-    return ip.inflate_range(bytes(data), index, start, length)
+    return _ip.inflate_range(bytes(data), index, start, length)
 
 
 def build_index(data: bytes, anchor_every: int = 4096):

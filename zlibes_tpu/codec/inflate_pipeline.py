@@ -1,4 +1,4 @@
-"""TPU inflate pipeline: host structure parse + device payload decode.
+"""Inflate pipeline: host structure parse + device payload decode.
 
 Two decode strategies (SURVEY.md §2 "Block-parallel inflate"):
 
@@ -176,11 +176,10 @@ def inflate_raw_scan(data: bytes, byte_offset: int = 0,
     dict_tail = bytes(dictionary[-C.WINDOW_SIZE:]) if dictionary else None
     if native.available():
         # host C++ path: the output returns to the host anyway, and the
-        # device global resolve pays ~7 pointer-doubling gather rounds
-        # over the whole window (~200 ms for 3.8 MB) where sequential
-        # memcpy splicing is memory-speed.  Device-resident consumers
-        # (inflate_to_device, the indexed/turbo/wide paths) keep the
-        # device resolvers.
+        # device global resolve pays several pointer-doubling gather
+        # rounds over the whole window where sequential memcpy splicing is
+        # memory-speed.  Device-resident consumers (inflate_to_device, the
+        # indexed lane paths) keep the device resolvers.
         out, index, end_bit, adler = native.decode(
             data, bit_offset=byte_offset * 8, dictionary=dict_tail)
         return out, index.blocks, end_bit, adler
@@ -348,9 +347,9 @@ def plan_groups(data: bytes, index: StreamIndex) -> list[_GroupPlan]:
         p.T = T
         p.d_base = int(lane_out[g0])
         p.d_total = int(lane_out[g1 - 1] + lane_outlen[g1 - 1]) - p.d_base
-        # bucketed per-group output span: resolve passes cost ~7 ns/index,
-        # so padding to the worst case would double-to-quadruple real work;
-        # the handful of distinct (B,T,O) buckets each compile once
+        # bucketed per-group output span: padding to the worst case would
+        # double-to-quadruple the resolve's per-byte passes; the handful of
+        # distinct (B,T,O) buckets each compile once
         p.O = _bucket(p.d_total, lo=4096)
         out_base = np.zeros(Bp, np.int32)
         out_base[:B] = lane_out[g0:g1] - p.d_base
@@ -377,9 +376,9 @@ def run_group(stream: _Stream, p: _GroupPlan, check: bool = True,
             raise CorruptError("invalid Huffman data in indexed block")
         if not (np.asarray(endpos)[: p.B] == p.lane_end).all():
             raise CorruptError("lane did not end at its anchor boundary")
-    # slice the token axis to the occupied prefix: indexed ops cost ~7 ns
-    # per index on TPU, so resolve's token scatters scale with B*T — the
-    # worst-case T (all-literal lane) is ~8x the typical token count
+    # slice the token axis to the occupied prefix: resolve's token
+    # scatters scale with B*T, and the worst-case T (all-literal lane) is
+    # ~8x the typical token count
     Tc = _bucket(int(cnt.max()) + 1, lo=256)
     if Tc < p.T:
         tv, td = tv[:, :Tc], td[:, :Tc]
@@ -496,18 +495,12 @@ def inflate_range(data: bytes, index: StreamIndex, start: int,
         getattr(index, "wide", False),
     )
     # profile flags propagate into the sub-index so seeks ride the same
-    # Pallas kernels as full-stream decode (VERDICT r4 weak #6: a turbo
-    # seek used to fall back to the slow XLA indexed decoder).  Block
-    # out_starts are 128 KiB multiples, so the sub-stream's anchor
-    # geometry (512 B turbo segments / 128 B wide sub-spans) is preserved.
-    if sub.turbo:
-        from .turbo import inflate_raw_turbo
+    # lane decode as full-stream decode; anchor geometry is per block, so
+    # a sub-index of whole blocks keeps it
+    if sub.turbo or sub.wide:
+        from .lanes import inflate_raw_lanes
 
-        out = inflate_raw_turbo(data, sub)
-    elif sub.wide:
-        from .wide import inflate_raw_wide
-
-        out = inflate_raw_wide(data, sub)
+        out = inflate_raw_lanes(data, sub)
     else:
         out = inflate_raw_indexed(data, sub)
     return out[start - out_lo : end - out_lo].tobytes()
@@ -517,27 +510,21 @@ def inflate_to_device(data: bytes, index: StreamIndex):
     """Decompress into device memory: returns (list of (device_array, base,
     nbytes)) without any device→host transfer of payload data.
 
-    This is the TPU-native consumption path (e.g. decompressing dataset
-    shards straight into HBM); also the honest benchmark surface given
-    host↔device link bandwidth.
+    The device-resident consumption path (e.g. decompressing dataset
+    shards straight into accelerator memory), with no host round trip for
+    the payload.
     """
     if not getattr(index, "self_contained", True):
         raise CorruptError(
             "inflate_to_device requires self-contained blocks (streams "
             "produced by this framework); use inflate() for foreign streams"
         )
-    if getattr(index, "turbo", False):
-        from .turbo import TurboPlan, run_turbo
+    if getattr(index, "turbo", False) or getattr(index, "wide", False):
+        from .lanes import LanePlan, run_lanes
 
-        plan = TurboPlan.build(data, index)
-        rows = run_turbo(plan, check=False)
-        return [(rows.reshape(-1), 0, plan.total_out)]
-    if getattr(index, "wide", False):
-        from .wide import WidePlan, run_wide
-
-        plan = WidePlan.build(data, index)
-        if plan.contiguous:
-            rows = run_wide(plan, check=False)
+        plan = LanePlan.build(data, index)
+        if plan.R and plan.contiguous:
+            rows = run_lanes(plan, check=False)
             return [(rows.reshape(-1), 0, plan.total_out)]
         # non-contiguous layouts (stored content blocks) splice on host
     stream = _Stream(data)
@@ -549,7 +536,7 @@ def inflate_to_device(data: bytes, index: StreamIndex):
 
 def inflate(data: bytes, verify_checksum: bool = True, index=None,
             dictionary: bytes | None = None) -> bytes:
-    """zlib-container inflate on the TPU pipeline."""
+    """zlib-container inflate on the device pipeline."""
     data = bytes(data)
     if len(data) < 6:
         raise TruncatedError("zlib stream shorter than minimal frame")
@@ -575,21 +562,16 @@ def inflate(data: bytes, verify_checksum: bool = True, index=None,
         dictionary = None
     known_adler = None
     if index is not None:
-        if getattr(index, "turbo", False):
-            if dictionary is not None:
-                raise HeaderError("turbo streams never carry FDICT")
-            from .turbo import inflate_raw_turbo
+        if getattr(index, "turbo", False) and dictionary is not None:
+            raise HeaderError("turbo streams never carry FDICT")
+        if ((getattr(index, "turbo", False) or getattr(index, "wide", False))
+                and dictionary is None
+                and getattr(index, "self_contained", True)):
+            # this encoder's streams (turbo and levels 1-9): anchor-lane
+            # device decode + block-row resolve
+            from .lanes import inflate_raw_lanes
 
-            out = inflate_raw_turbo(data, index)
-            end_bit = index.blocks[-1].end_bit
-        elif (getattr(index, "wide", False) and dictionary is None
-              and getattr(index, "self_contained", True)):
-            # default-profile (levels 1-9) streams: two-level-table Pallas
-            # decode + block-row resolve — the device path for per-block
-            # 15-bit tables (VERDICT r4 missing #1)
-            from .wide import inflate_raw_wide
-
-            out = inflate_raw_wide(data, index)
+            out = inflate_raw_lanes(data, index)
             end_bit = index.blocks[-1].end_bit
         else:
             from ..runtime import native
@@ -629,8 +611,8 @@ def inflate(data: bytes, verify_checksum: bool = True, index=None,
             # pass — no extra whole-output traversal
             actual = known_adler
         elif _nat.available():
-            # out is host-resident here; the C++ Adler avoids a 1-RPC
-            # device upload just to checksum
+            # out is host-resident here; the C++ Adler avoids a device
+            # upload just to checksum
             actual = _nat.adler32(out.tobytes())
         else:
             actual = int(adler32_device(jnp.asarray(out), out.size))

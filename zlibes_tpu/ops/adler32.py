@@ -1,14 +1,14 @@
 """Tiled Adler-32 modular reduction (device-side).
 
 Reference analog: the scalar two-accumulator loop at src/adler32.ts:1-10.
-TPU-native formulation: Adler-32 is associative under per-tile partials —
+Device formulation: Adler-32 is associative under per-tile partials —
 for a tile at byte offset o with local digits d_j:
 
     s1 += sum(d_j)
     s2 contribution = (n - o) * sum(d_j) - sum(j * d_j)   (mod 65521)
 
 so the whole checksum is two masked reductions plus a tiny combine, all
-int32-safe (no x64), fully vectorized on the VPU.
+int32-safe (no x64), fully vectorized.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Device-side DEFLATE encode stages: symbol mapping, histograms, bit-packing.
 
 Reference analog: the per-symbol encode loop at src/deflate.ts:183-226,
-which calls BitWriteStream.write once *per bit*.  TPU-native redesign:
+which calls BitWriteStream.write once *per bit*.  Device redesign:
 tokens map to (code, nbits) fields via table gathers, bit offsets come from
 an exclusive scan of field widths, and the payload is materialized with
 word scatter-adds (each ≤15-bit field touches at most two u32 words).
@@ -31,8 +31,7 @@ def token_symbols(
     """Map tokens to litlen/dist symbols and build per-block histograms.
 
     Returns (lsym, dsym, valid, ll_freq (B,288), d_freq (B,32)); dsym is -1
-    for literals.  Symbol mapping is arithmetic (ops/symbol_math.py) — the
-    value-indexed table gathers it replaces cost ~10 ns/token on TPU.
+    for literals.  Symbol mapping is arithmetic (ops/symbol_math.py).
     """
     from .symbol_math import dist_symbol, len_symbol
 
@@ -47,12 +46,10 @@ def token_symbols(
     ds = jnp.clip(toks_dist, 0, C.WINDOW_SIZE)
     dsym = jnp.where(is_match, dist_symbol(ds), -1)
 
-    # histograms via per-block sort + boundary bisection: the one-hot
-    # matmul this replaces materialized a (B, nseg*T, S) bf16 tensor
-    # (~1.2 GB of HBM traffic per 2 MiB dispatch — it WAS the symbols
-    # stage).  A 1-operand row sort is ~1 ms, and counts are differences
-    # of log-bisection ranks at the S+1 class boundaries — no scatters,
-    # no one-hot.
+    # histograms via per-block sort + boundary bisection: a one-hot
+    # matmul would materialize a (B, nseg*T, S) tensor; a 1-operand row
+    # sort is cheap, and counts are differences of log-bisection ranks at
+    # the S+1 class boundaries — no scatters, no one-hot.
     def hist(sym, mask, S):
         n = nseg * T
         rows = jnp.sort(jnp.where(mask, sym, S).reshape(B, n), axis=1)
@@ -106,8 +103,8 @@ def pack_payload(
     output offset of the FIRST token starting at-or-after byte
     j*sub_every, or 2^30 sentinels when no such token exists in this lane
     (the host back-fills from the next boundary).  These are the uniform
-    128-B anchors of the wide-profile device decoder
-    (ops/wide_kernel.py).
+    128-B anchors of the default-profile lane decoder
+    (ops/lane_decode.py).
     """
     from .symbol_math import dist_extra, len_extra, onehot_rows
 
@@ -121,7 +118,8 @@ def pack_payload(
 
     # per-block code/length lookups as batched one-hot matmuls (bf16 one-
     # hot is exact for 0/1; table values split into <=255 lo/hi columns so
-    # every MXU pass is exact) — replaces 4 value-gathers per token
+    # every bf16 product is exact with f32 accumulation) — replaces 4
+    # value-gathers per token
     def table_lookup(sym, codes, lens, S):
         oh = onehot_rows(jnp.clip(sym, 0, S - 1).reshape(B, nseg * T),
                          S, jnp.bfloat16)
@@ -169,8 +167,7 @@ def pack_payload(
     en = enabled[blk2] & valid
 
     # combine the four fields into one <=48-bit (lo64, hi64) pair per
-    # token, then scatter at most three words — scatter-adds cost ~10 ns
-    # per index, so 3 beats the naive 8 by ~2.7x
+    # token, then scatter at most three words (instead of the naive 8)
     def _shr32m(x, s):
         return (x >> (jnp.uint32(31) - s)) >> 1  # x >> (32-s); 0 at s == 0
 
@@ -255,8 +252,7 @@ def pack_payload_fast(
 ):
     """Scatter-free payload packing for <=32-bit tokens (turbo profile).
 
-    pack_payload's three scatter-adds cost ~10 ns per token-word on TPU
-    (~45 ms for a 2 MiB dispatch — 2/3 of the whole encode).  When every
+    pack_payload scatter-adds three words per token.  When every
     token fits 32 coded bits (CodecConfig.turbo() guarantees this via
     split_far), the bit stream has special structure: a token crosses at
     most ONE word boundary, so consecutive tokens' word indices advance by
@@ -271,7 +267,7 @@ def pack_payload_fast(
          plane SUMS are exact ORs);
       3. run-end values place into per-lane word rows with ONE one-hot
          matmul over R word slots (exact: 0/1 one-hot x <=255 byte planes
-         on the MXU, f32 accumulation);
+         in bf16, f32 accumulation);
       4. one per-lane row scatter splices rows into the block buffers
          (L*R indices instead of 3*L*T).
 
@@ -383,6 +379,39 @@ def pack_payload_fast(
     return words.reshape(B, W), payload_end, lane_bit0
 
 
+def _token_fields(toks_val, toks_dist, valid, ll_code, ll_len, d_code,
+                  d_len):
+    """Per-token combined (value, nbits) field for <=32-bit tokens, from
+    one shared code table pair (row 0 of the per-block arrays): litlen
+    code, length extra, dist code, dist extra, packed LSB-first."""
+    from .symbol_math import dist_extra, dist_symbol, len_extra, len_symbol
+
+    ism = valid & (toks_dist > 0)
+    lsym = jnp.where(ism, len_symbol(jnp.clip(toks_val, 3, C.MAX_MATCH)),
+                     jnp.clip(toks_val, 0, C.NUM_LITLEN_SYMBOLS - 1))
+    dsym = jnp.where(ism, dist_symbol(jnp.clip(toks_dist, 1, C.WINDOW_SIZE)),
+                     0)
+    code1 = jnp.take(ll_code[0], lsym).astype(jnp.uint32)
+    n1 = jnp.where(valid, jnp.take(ll_len[0], lsym), 0)
+    code3 = jnp.where(ism, jnp.take(d_code[0], dsym), 0).astype(jnp.uint32)
+    n3 = jnp.where(ism, jnp.take(d_len[0], dsym), 0)
+    le_n, le_v = len_extra(toks_val)
+    len_en = jnp.where(ism, le_n, 0)
+    len_ev = jnp.where(ism, le_v, 0).astype(jnp.uint32)
+    de_n, de_v = dist_extra(toks_dist)
+    dist_en = jnp.where(ism, de_n, 0)
+    dist_ev = jnp.where(ism, de_v, 0).astype(jnp.uint32)
+    n12 = n1 + len_en
+    n123 = n12 + n3
+    val = code1 | (len_ev << n1.astype(jnp.uint32))
+    val = val | jnp.where(n12 < 32,
+                          code3 << jnp.minimum(n12, 31).astype(jnp.uint32), 0)
+    val = val | jnp.where(n123 < 32,
+                          dist_ev << jnp.minimum(n123, 31).astype(jnp.uint32),
+                          0)
+    return val, n123 + dist_en
+
+
 def _pack_rows_turbo(
     toks_val: jax.Array,    # int32 (L, T)
     toks_dist: jax.Array,   # int32 (L, T)
@@ -396,41 +425,29 @@ def _pack_rows_turbo(
     nseg: int,
     R: int,                 # u32 words per lane row (>= max lane bits/32 + 2)
 ):
-    """Shared turbo pack core: Pallas field kernel + per-lane sort
-    compaction of run-end words into (L, R) lane rows.
+    """Shared turbo pack core: per-token fields from the shared tables +
+    per-lane sort compaction of run-end words into (L, R) lane rows.
 
-    Replaces pack_payload_fast's two (tokens × alphabet) one-hot matmul
-    lookups with banked vreg gathers (ops/encode_kernel.py) and its
-    (L, T, R) one-hot placement matmul with a 3-operand per-lane sort:
-    tokens' word indices advance by ≤1 (every coded token fits 32 bits,
+    Tokens' word indices advance by <=1 (every coded token fits 32 bits,
     CodecConfig.turbo()'s split_far contract), so each word owns exactly
     one run-end token and compacting run-ends by word index IS the word
-    buffer.  Symbol mapping happens in-kernel — no lsym/dsym inputs.
+    buffer.
 
     Returns (rows (L, R) uint32, lane_tot (L,), lane_bit0 (L,),
     payload_end (B,), split_bit (L,), split_out (L,)); rows[l, j] is word
     j of lane l's coded bit run, relative to the lane's first stream word
     (lane_bit0 >> 5).  split_bit/split_out are the mid-segment
     anchor split — bit/output offsets (relative to the lane's first token)
-    of the first token starting at-or-after output byte SUB of the lane,
-    2^30 when every token starts earlier (the caller anchors the split at
-    the lane end).  They pair each SEG-byte lane into two decode lanes for
-    the lock-step inflate kernel (ops/turbo_kernel.py: SUB/SEG_SPAN).
+    of the first token starting at-or-after output byte
+    TURBO_SEG_SPAN/2 of the lane, 2^30 when every token starts earlier
+    (the caller anchors the split at the lane end).  They pair each
+    segment lane into two decode lanes (codec/lanes.py).
     """
-    from .encode_kernel import encode_fields, pack_tables
-
     L, T = toks_val.shape
     B = L // nseg
-    assert (L * T) % 128 == 0
-
-    lt_pack, dt_pack = pack_tables(ll_code, ll_len, d_code, d_len)
-    en_i = valid.astype(jnp.int32)
-    NR = L * T // 128
-    val2, nb2 = encode_fields(
-        toks_val.reshape(NR, 128), toks_dist.reshape(NR, 128),
-        en_i.reshape(NR, 128), lt_pack, dt_pack)
-    val = val2.reshape(L, T).astype(jnp.uint32)
-    tb = jnp.where(valid, nb2.reshape(L, T), 0)
+    val, nb = _token_fields(toks_val, toks_dist, valid, ll_code, ll_len,
+                            d_code, d_len)
+    tb = jnp.where(valid, nb, 0)
 
     # bit offsets (identical bookkeeping to pack_payload)
     lane_tot = jnp.sum(tb, axis=1)
@@ -443,11 +460,10 @@ def _pack_rows_turbo(
     lane_bit0 = lane_base + hdr_bits[blk1]
     payload_end = jnp.zeros(B, jnp.int32).at[blk1].add(lane_tot) + hdr_bits
 
-    # mid-segment anchor split: first token whose output start >= SUB
-    from .turbo_kernel import SUB as _SUB
+    # mid-segment anchor split: first token whose output start >= half
     adv = jnp.where(valid, jnp.where(toks_dist > 0, toks_val, 1), 0)
     wout = jnp.cumsum(adv, axis=1) - adv
-    cond = wout >= _SUB           # monotone along T (wout nondecreasing)
+    cond = wout >= C.TURBO_SEG_SPAN // 2  # monotone along T
     BIGS = jnp.int32(1 << 30)
     split_bit = jnp.min(jnp.where(cond, within, BIGS), axis=1)
     split_out = jnp.min(jnp.where(cond, wout, BIGS), axis=1)
@@ -498,24 +514,14 @@ def pack_payload_turbo(
     W: int,                 # u32 words per block buffer
     R: int,                 # u32 words per lane row (>= max lane bits/32 + 2)
 ):
-    """Shared-table payload packing (turbo profile): Pallas field kernel +
-    sort-compacted word placement into per-block W-word buffers.
-
-    Replaces pack_payload_fast's two (tokens x alphabet) one-hot matmul
-    lookups with banked vreg gathers (ops/encode_kernel.py) and its
-    (L, T, R) one-hot placement matmul with a 3-operand per-lane sort:
-    tokens' word indices advance by <=1 (every coded token fits 32 bits,
-    CodecConfig.turbo()'s split_far contract), so each word owns exactly
-    one run-end token and compacting run-ends by word index IS the word
-    buffer.  Symbol mapping happens in-kernel — no lsym/dsym inputs.
+    """Shared-table payload packing (turbo profile): per-token fields from
+    the shared tables + sort-compacted word placement into per-block
+    W-word buffers (see _pack_rows_turbo).  Symbol mapping happens inside
+    — no lsym/dsym inputs.
 
     Returns (words (B, W), payload_end (B,), lane_bit0 (L,),
     split_bit (L,), split_out (L,)): the last two are the mid-segment
-    anchor split — bit/output offsets (relative to the lane's first token)
-    of the first token starting at-or-after output byte SUB of the lane,
-    2^30 when every token starts earlier (the caller anchors the split at
-    the lane end).  They pair each SEG-byte lane into two decode lanes for
-    the lock-step inflate kernel (ops/turbo_kernel.py: SUB/SEG_SPAN).
+    anchor split of _pack_rows_turbo.
     """
     L, T = toks_val.shape
     B = L // nseg

@@ -1,7 +1,7 @@
 """Canonical-Huffman decode-table construction, batched over blocks.
 
 Reference analog: the per-block nested-map builder at src/huffman.ts:8-39
-and the bit-serial canonical decoder at src/inflate.ts:239-252.  TPU-native
+and the bit-serial canonical decoder at src/inflate.ts:239-252.  Device
 redesign: each block gets a *flat* 2^M-entry lookup table indexed by the
 next M stream bits (LSB-first), so the device decode loop is one gather per
 symbol instead of one branch per bit.  Table construction is vectorized in

@@ -1,10 +1,10 @@
 """Batched table-driven DEFLATE payload decode + parallel LZ resolution.
 
-The flagship TPU redesign of the reference's bit-serial decoder
+The general device redesign of the reference's bit-serial decoder
 (src/inflate.ts:237-291, one BitReadStream.read() call per bit, plus the
 byte-at-a-time back-copy loop at :287-290).
 
-TPU-native formulation:
+Formulation:
   * Decode lanes are *chunks* of a block delimited by sync anchors the
     encoder records (bit offset + output offset at a token boundary, every
     ~4 KiB of output).  The symbol decode while_loop is latency-bound per
@@ -169,9 +169,7 @@ def resolve_global(
     err marks references below coordinate 0.  O ≤ 2^23 (source positions
     pack into 23 bits of the combined resolve state).
 
-    Cost model (measured on TPU v5e): irregular indexed ops run at ~7 ns
-    per *index* regardless of width, so the design minimizes indexed
-    passes: ONE token scatter (packed val|dist), ONE token-start scatter +
+    The design minimizes indexed passes: ONE token scatter (packed val|dist), ONE token-start scatter +
     cummax forward-fill (replacing a marks-scatter + per-byte gathers),
     and ONE per-byte gather for token metadata; then pointer-doubling
     rounds touch only the shrinking unresolved set (sort-compacted).
@@ -226,7 +224,7 @@ def resolve_global(
         e2 = state[jnp.where(state >= 0, state >> 8, 0)]
         return jnp.where(state < 0, state, e2)
 
-    # phase 1: full-width doubling rounds (one 7 ns gather per byte per
+    # phase 1: full-width doubling rounds (one gather per byte per
     # round, depth halves each round) while the unresolved set is too big
     # to be worth compacting
     A = max(O // 8, 1024)

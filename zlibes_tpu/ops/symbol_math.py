@@ -1,9 +1,8 @@
 """Arithmetic DEFLATE symbol mappings (gather-free).
 
 The RFC 1951 length/distance code tables follow a strict geometric
-pattern, so value→symbol/base/extra# are pure arithmetic on the VPU —
-replacing the value-indexed table gathers (~7-15 ns per element on TPU,
-they dominated token_symbols/pack_payload) with a handful of dense ops.
+pattern, so value→symbol/base/extra# are pure arithmetic — a handful of
+dense ops in place of value-indexed table gathers.
 
 Verified exhaustively against the constant tables in tests/test_config.py.
 """
@@ -60,6 +59,6 @@ def len_extra(length):
 
 
 def onehot_rows(idx, n, dtype=jnp.float32):
-    """One-hot of idx (…,) over [0, n) — built densely for MXU lookups."""
+    """One-hot of idx (…,) over [0, n) — built densely for matmul lookups."""
     iota = jnp.arange(n, dtype=jnp.int32)
     return (idx[..., None] == iota).astype(dtype)

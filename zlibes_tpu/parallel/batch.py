@@ -2,11 +2,11 @@
 
 The production use of preset dictionaries: compressing many small related
 payloads (documents, rows, RPC bodies) where each becomes its own zlib
-member referencing one shared dictionary (RFC 1950 FDICT).  TPU-native
+member referencing one shared dictionary (RFC 1950 FDICT).  Device
 mapping (SURVEY.md §2 "Dictionary broadcast"):
 
   * payload rows shard across the mesh (data parallelism);
-  * the dictionary is **replicated** — one broadcast over ICI — and every
+  * the dictionary is **replicated** — one broadcast — and every
     lane's match finder sees it as a 32 KiB context prefix;
   * per-payload Adler-32 and bit-packing happen on device; the host only
     frames each member (6-byte FDICT header + trailer).

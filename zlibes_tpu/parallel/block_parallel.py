@@ -13,8 +13,9 @@ shard block batches across chips with XLA collectives:
   * inflate: anchor lanes shard across devices; each device decodes and
     LZ-resolves its contiguous span of blocks.
 
-Collectives ride ICI inside a slice (DCN across hosts once
-``jax.distributed`` is initialized — same code path, bigger mesh).
+The mesh is one flat ``("blocks",)`` axis; XLA lowers the collectives
+to the backend's own (NCCL between GPUs).  Multi-process meshes work once
+``jax.distributed`` is initialized — same code path, bigger mesh.
 Validated on a virtual CPU mesh (tests/conftest.py) and via
 ``__graft_entry__.dryrun_multichip``.
 """
@@ -26,11 +27,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-
-try:  # JAX ≥ 0.4.35 exposes shard_map at top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
 
 from ..ops.adler32 import _M, _modsum, _mulmod
 from ..ops.deflate_kernel import (pack_payload, pack_payload_turbo,
@@ -44,7 +40,7 @@ import time as _time
 # callers clear LAST_TIMINGS, run one codec call, then read
 # {host_stage, dispatch, host_splice} seconds + dispatch count — the
 # virtual CPU mesh cannot show compute speedup, but per-device HOST
-# overhead growth is measurable and reported (VERDICT r3 #9)
+# overhead growth is measurable and reported
 LAST_TIMINGS: dict = {}
 
 
@@ -156,7 +152,7 @@ def sharded_deflate_step(
         adler = (s2.astype(jnp.uint32) << 16) | s1.astype(jnp.uint32)
         return words, payload_end, lane_bit0, adler
 
-    return shard_map(
+    return jax.shard_map(
         body, mesh=mesh,
         in_specs=(P("blocks"), P("blocks")),
         out_specs=(P("blocks"), P("blocks"), P("blocks"), P()),
@@ -175,7 +171,7 @@ def sharded_histogram_step(
     N: int, SEG_SIZE: int, S: int = 16, J: int = 16,
     max_code_bits: int = 15,
     reset: int = 0,      # LZ window reset span (turbo: 4096)
-    turbo: bool = False,  # two-phase matcher + Pallas lock-step selection
+    turbo: bool = False,  # two-phase matcher + split far matches
 ):
     """Phase 1 of dynamic-table sharded deflate: match-find + tokenize on
     every device, a real psum combines the global symbol histograms (and
@@ -199,15 +195,8 @@ def sharded_histogram_step(
         shard = jax.lax.axis_index("blocks")
         matches = find_matches(blocks, n_valid, N=N, S=S, J=J,
                                reset=reset, two_phase=turbo)
-        if turbo:
-            from ..codec.deflate_pipeline import _select_turbo_glue
-
-            tv, td, cnt = _select_turbo_glue(
-                blocks, matches, n_valid, N=N, SEG_SIZE=SEG_SIZE,
-                lazy=True, split_far=True)
-        else:
-            tv, td, cnt = select_tokens(blocks, matches, n_valid, N=N,
-                                        SEG_SIZE=SEG_SIZE)
+        tv, td, cnt = select_tokens(blocks, matches, n_valid, N=N,
+                                    SEG_SIZE=SEG_SIZE, split_far=turbo)
         _ls, _ds, _v, llf, dfq = token_symbols(tv, td, cnt, nseg=nseg)
         ll_tot = jax.lax.psum(jnp.sum(llf, axis=0), "blocks")
         d_tot = jax.lax.psum(jnp.sum(dfq, axis=0), "blocks")
@@ -222,7 +211,7 @@ def sharded_histogram_step(
         adler = (s2.astype(jnp.uint32) << 16) | s1.astype(jnp.uint32)
         return tv, td, cnt, ll_len, d_len, adler
 
-    return shard_map(
+    return jax.shard_map(
         body, mesh=mesh,
         in_specs=(P("blocks"), P("blocks")),
         out_specs=(P("blocks"), P("blocks"), P("blocks"), P(), P(), P()),
@@ -241,9 +230,9 @@ def sharded_pack_step(
 ):
     """Phase 2: bit-pack every device's token shard with the shared codes.
 
-    ``R > 0`` routes through ``pack_payload_turbo`` (the Pallas field
-    kernel + sort-placement packer; requires <=32-bit tokens, i.e. a
-    9-bit-capped shared table and split far matches)."""
+    ``R > 0`` routes through ``pack_payload_turbo`` (shared-table fields
+    + sort-placement packer; requires <=32-bit tokens, i.e. a 9-bit-capped
+    shared table and split far matches)."""
     DBd = cnt.shape[0] // (N // SEG_SIZE)
     D = mesh.devices.size
     Bd = DBd // D
@@ -264,7 +253,7 @@ def sharded_pack_step(
         big = jnp.full(lb.shape, 1 << 30, jnp.int32)  # no split anchors
         return w, pe, lb, big, big
 
-    return shard_map(
+    return jax.shard_map(
         body, mesh=mesh,
         in_specs=(P("blocks"), P("blocks"), P("blocks"), P("blocks")),
         out_specs=(P("blocks"), P("blocks"), P("blocks"), P("blocks"),
@@ -303,7 +292,7 @@ def sharded_inflate_step(
         bad = jnp.any(err) | jnp.any(still) | rerr
         return out[None, :], bad[None]
 
-    return shard_map(
+    return jax.shard_map(
         body, mesh=mesh,
         in_specs=(P("blocks"), P("blocks"), P("blocks"), P("blocks"),
                   P("blocks"), P("blocks"), P("blocks"), P("blocks")),
@@ -312,211 +301,75 @@ def sharded_inflate_step(
     )(litlen_tab, dist_tab, table_row, bit0, end_bit, active, out_base, span)
 
 
-@partial(jax.jit, static_argnames=("mesh", "T", "LB", "CB"))
-def sharded_turbo_inflate_step(
-    words: jax.Array,      # (NB, 128) int32 replicated aligned stream blocks
-    starts_w: jax.Array,   # (L_pad,) int32 per-lane first block idx, sharded
-    shift_idx: jax.Array,  # (L_pad, 128) int32 residue+iota, sharded
-    bit0: jax.Array,       # (8, L_pad//8) int32 lane-grid, cols sharded
-    endb: jax.Array,       # (8, L_pad//8) int32 lane-grid, cols sharded
-    base_g: jax.Array,     # (8, L_pad//8) int32 lane-grid first-token
-                           # sub-span offsets, cols sharded
-    chunk_inv: jax.Array,  # (C_pad,) int32 within-shard chunk inverse
-                           # permutation (local indices), sharded
-    lt: jax.Array,         # (8, 512) int32 replicated litlen table
-    dt: jax.Array,         # (8, 512) int32 replicated dist table
-    mesh: Mesh, T: int, LB: int, CB: int,
+@partial(jax.jit, static_argnames=("mesh", "T", "O"))
+def sharded_lane_inflate_step(
+    words: jax.Array,         # (NW,) uint32 replicated stream words
+    lanes: jax.Array,         # (4, L) int32 lane arrays, cols sharded
+    tables: jax.Array,        # (NT, TAB_W) int32 replicated decode tables
+    lane_out: jax.Array,      # (L,) int32 flat output offsets, sharded
+    lane_out_end: jax.Array,  # (L,) int32 expected lane output ends
+    row_len: jax.Array,       # (R,) int32 valid bytes per row, sharded
+    mesh: Mesh, T: int, O: int,
 ):
-    """The FLAGSHIP inflate under the mesh: every device runs the full
-    Pallas turbo pipeline (DMA lane extraction → shift → lock-step decode
-    → token glue → chunk-row LZ resolve) on its contiguous shard of
-    anchor lanes.  Lanes are independent by construction (512 B anchors,
-    4 KiB window resets), so the only cross-device traffic is the input
-    broadcast — compute scales linearly with devices.
+    """Mesh-sharded anchor-lane inflate (turbo and default profiles): every
+    device decodes and resolves its contiguous span of whole block rows.
+    Blocks are self-contained, so the only cross-device traffic is the
+    input broadcast.
 
-    Requires L_pad % (D * LB) == 0 (whole lane-blocks per device; the
-    lane-grid column span of a device is then exactly its lane span).
-    Returns (rows (C_pad, 4096) uint8 sharded over chunks,
-    meta (4, L_pad) int32 replicated-layout lane metadata, sharded cols).
-    Replaces the reference's bit-serial decode + byte-copy loops
-    (/root/reference/src/inflate.ts:237-291) at mesh scale.
-    """
-    from ..codec.turbo import _from_grid, _glue_tokens, _to_planes
-    from ..ops import turbo_kernel as tk
+    Requires the row count to be a multiple of the device count (whole
+    rows per device; LanePlan.build(row_align=D)).  Returns (rows (R*O,)
+    uint8 sharded over rows, errors (D, 4) bool per-device integrity
+    flags — see codec.lanes.raise_lane_errors)."""
+    from ..codec.lanes import _lane_errors
+    from ..ops import lane_decode as ld
 
-    L_pad = starts_w.shape[0]
-    D = mesh.devices.size
-    L_loc = L_pad // D
-    assert L_loc % LB == 0, "need whole lane-blocks per device"
-    C_loc = L_loc // tk.SUBS_PER_CHUNK
+    def body(lanes, lane_out, lane_out_end, row_len):
+        # lane output offsets are global; each device resolves its rows
+        base = jax.lax.axis_index("blocks") * (row_len.shape[0] * O)
+        tokens, meta = ld.decode_lanes(words, lanes, tables, T=T)
+        out, lane_bytes, rerr = ld.resolve_lanes(
+            tokens, meta[0], lane_out - base, row_len, O=O)
+        flags = _lane_errors(meta, lanes, lane_out - base,
+                             lane_out_end - base, lane_bytes, rerr)
+        return out, flags[None]
 
-    def body(starts_w, shift_idx, bit0, endb, base_g, chunk_inv):
-        fetched = tk.extract_lanes(words, starts_w)
-        lanes = tk.shift_lanes(fetched, shift_idx, LB=LB)
-        planes = _to_planes(lanes, LB=LB)
-        tg, mg = tk.decode_turbo(planes, bit0, endb, lt, dt, T=T, LB=LB)
-        meta = _from_grid(mg, LB=LB)
-        t16, s16 = _glue_tokens(tg, mg[0], base_g, T=T, C_pad=C_loc, LB=LB)
-        rows = jnp.take(tk.resolve_turbo(t16, s16, CB=CB), chunk_inv,
-                        axis=0)
-        return rows, meta
-
-    return shard_map(
+    return jax.shard_map(
         body, mesh=mesh,
-        in_specs=(P("blocks"), P("blocks"), P(None, "blocks"),
-                  P(None, "blocks"), P(None, "blocks"), P("blocks")),
-        out_specs=(P("blocks"), P(None, "blocks")),
+        in_specs=(P(None, "blocks"), P("blocks"), P("blocks"), P("blocks")),
+        out_specs=(P("blocks"), P("blocks")),
         check_vma=False,
-    )(starts_w, shift_idx, bit0, endb, base_g, chunk_inv)
+    )(lanes, lane_out, lane_out_end, row_len)
 
 
-def parallel_inflate_turbo(data: bytes, index, mesh: Mesh,
-                           lane_block: int | None = None,
+def parallel_inflate_lanes(data: bytes, index, mesh: Mesh,
                            check: bool = True) -> bytes:
-    """Mesh-sharded turbo inflate (anchor lanes split across devices)."""
-    from ..codec.turbo import TurboPlan
-    from ..ops import turbo_kernel as tk
-    from ..spec.errors import CorruptError
-
-    D = mesh.devices.size
-    # lane block sized so every device gets >= one whole block
-    if lane_block is None:
-        from ..codec.turbo import _bucket as _b
-
-        # >= 8 whole 4 KiB chunks (8 * SUBS_PER_CHUNK lanes) per device so
-        # chunk rows never straddle a device boundary and the glue's
-        # grid-to-rows transpose stays expressible (LB//8 % spc == 0)
-        lane_block = min(tk.LANE_BLOCK,
-                         max(8 * tk.SUBS_PER_CHUNK,
-                             _b(-(-index.anchor_bit.size // D),
-                                8 * tk.SUBS_PER_CHUNK)))
-    with _phase("host_stage"):
-        plan = TurboPlan.build(bytes(data), index, lane_block=lane_block,
-                               min_lanes=D * lane_block, sort_shards=D)
-        if plan.L_pad % (D * plan.LB):
-            raise CorruptError("lane padding does not tile the mesh")
-        L_loc = plan.L_pad // D
-        CB = min(tk.CHUNK_BLOCK, L_loc // tk.SUBS_PER_CHUNK)
-        sh = NamedSharding(mesh, P("blocks"))
-        sh_col = NamedSharding(mesh, P(None, "blocks"))
-        args = (
-            plan.words,
-            _put(np.asarray(plan.starts_w), sh),
-            _put(np.asarray(plan.shift_idx), sh),
-            _put(np.asarray(plan.bit0), sh_col),
-            _put(np.asarray(plan.endb), sh_col),
-            _put(np.asarray(plan.base_g), sh_col),
-            _put(np.asarray(plan.chunk_inv), sh),
-            plan.lt, plan.dt,
-        )
-    with _phase("dispatch"):
-        rows, meta = sharded_turbo_inflate_step(
-            *args, mesh=mesh, T=plan.T, LB=plan.LB, CB=CB,
-        )
-    with _phase("readback"):
-        if check:
-            plan.check_meta(_to_host(meta))
-        flat = _to_host(rows).reshape(-1)[: plan.total_out]
-    return flat.tobytes()
-
-
-def sharded_wide_inflate_step(
-    words: jax.Array,      # (NB, 128) int32 replicated aligned stream blocks
-    starts_w: jax.Array,   # (L_pad,) int32 per-lane first block idx, sharded
-    shift_idx: jax.Array,  # (L_pad, 128) int32 residue+iota, sharded
-    bit0: jax.Array,       # (8, L_pad//8) int32 lane-grid, cols sharded
-    endb: jax.Array,       # (8, L_pad//8) int32 lane-grid, cols sharded
-    base_g: jax.Array,     # (8, L_pad//8) int32 first-token sub-span offsets
-    lt: jax.Array,         # (n_steps, 8, LL_W) per-step tables, sharded
-    dt: jax.Array,         # (n_steps, 8, D_W) per-step tables, sharded
-    mesh: Mesh, T: int, LB: int, LPB: int, SW: int, GF: int,
-):
-    """Mesh-sharded DEFAULT-profile inflate: every device runs the full
-    wide Pallas pipeline (DMA lane extraction → shift → two-level-table
-    lock-step decode → glue → block-row 32 KiB-reach LZ resolve) on its
-    contiguous span of whole block rows.  Blocks are self-contained, so
-    the only cross-device traffic is the input broadcast — compute scales
-    linearly with devices.  This is the mesh path for per-block 15-bit
-    tables (VERDICT r4: block-parallel inflate was turbo-only).
-
-    Requires L_pad % (D * max(LB, LPB)) == 0 and 8 resolve rows per
-    device (WidePlan.build(row_align=8*D) guarantees both).
-    Returns (rows (Cb, LPB*128) uint8 sharded over block rows,
-    meta (4, L_pad) int32 lane metadata, sharded cols).
-    """
-    from ..codec.wide import _glue_wide, wide_lanes
-    from ..codec.turbo import _from_grid, _to_planes
-    from ..ops import turbo_kernel as tk
-    from ..ops import wide_kernel as wk
-
-    L_pad = starts_w.shape[0] * GF
-    D = mesh.devices.size
-    L_loc = L_pad // D
-    assert L_loc % LB == 0 and L_loc % LPB == 0
-    Cb_loc = L_loc // LPB
-
-    def body(starts_w, shift_idx, bit0, endb, base_g, lt, dt):
-        lanes = wide_lanes(words, starts_w, shift_idx, GF=GF, SW=SW)
-        planes = _to_planes(lanes, LB=LB)
-        tg, sg, mg = wk.decode_wide(planes, bit0, endb, base_g, lt, dt,
-                                    T=T, LB=LB)
-        meta = _from_grid(mg[:4], LB=LB)
-        toks, starts = _glue_wide(tg, sg, mg[0], mg[4], mg[5], T=T,
-                                  Cb=Cb_loc, LPB=LPB, LB=LB)
-        rows = wk.resolve_wide(toks, starts, NSUBB=LPB)
-        return rows, meta
-
-    return shard_map(
-        body, mesh=mesh,
-        in_specs=(P("blocks"), P("blocks"), P(None, "blocks"),
-                  P(None, "blocks"), P(None, "blocks"), P("blocks"),
-                  P("blocks")),
-        out_specs=(P("blocks"), P(None, "blocks")),
-        check_vma=False,
-    )(starts_w, shift_idx, bit0, endb, base_g, lt, dt)
-
-
-def parallel_inflate_wide(data: bytes, index, mesh: Mesh,
-                          check: bool = True) -> bytes:
-    """Mesh-sharded wide inflate (whole block rows split across devices)."""
-    from ..codec.wide import WidePlan
+    """Mesh-sharded anchor-lane inflate (whole block rows split across
+    devices) of a turbo- or default-profile indexed stream."""
+    from ..codec.lanes import LanePlan, assemble, raise_lane_errors
 
     D = mesh.devices.size
     with _phase("host_stage"):
-        plan = WidePlan.build(bytes(data), index, row_align=8 * D)
-        if not plan.coded:
+        plan = LanePlan.build(bytes(data), index, row_align=D)
+        if not plan.R:
             raise ValueError("all-stored stream has no device work")
         sh = NamedSharding(mesh, P("blocks"))
-        sh_col = NamedSharding(mesh, P(None, "blocks"))
         args = (
             plan.words,
-            _put(np.asarray(plan.starts_w), sh),
-            _put(np.asarray(plan.shift_idx), sh),
-            _put(np.asarray(plan.bit0), sh_col),
-            _put(np.asarray(plan.endb), sh_col),
-            _put(np.asarray(plan.base_g), sh_col),
-            _put(np.asarray(plan.lt), sh),
-            _put(np.asarray(plan.dt), sh),
+            _put(np.asarray(plan.lanes), NamedSharding(mesh, P(None,
+                                                               "blocks"))),
+            plan.tables,
+            _put(np.asarray(plan.lane_out), sh),
+            _put(np.asarray(plan.lane_out_end), sh),
+            _put(np.asarray(plan.row_len), sh),
         )
     with _phase("dispatch"):
-        rows, meta = sharded_wide_inflate_step(
-            *args, mesh=mesh, T=plan.T, LB=plan.LB, LPB=plan.LPB,
-            SW=plan.SW, GF=plan.GF,
-        )
+        rows, flags = sharded_lane_inflate_step(*args, mesh=mesh, T=plan.T,
+                                                O=plan.O)
     with _phase("readback"):
         if check:
-            plan.check_meta(_to_host(meta))
-        rows_np = _to_host(rows)
-    if plan.contiguous:
-        return rows_np.reshape(-1)[: plan.total_out].tobytes()
-    out = np.empty(plan.total_out, np.uint8)
-    for i, b in enumerate(plan.coded):
-        out[b.out_start : b.out_start + b.out_len] = rows_np[i, : b.out_len]
-    for b in plan.stored:
-        pos = (b.payload_start_bit >> 3) + 4
-        out[b.out_start : b.out_start + b.out_len] = np.frombuffer(
-            data, np.uint8, count=b.out_len, offset=pos)
-    return out.tobytes()
+            raise_lane_errors(_to_host(flags))
+        rows_np = _to_host(rows).reshape(plan.R, plan.O)
+    return assemble(plan, bytes(data), rows_np).tobytes()
 
 
 def _put(arr: np.ndarray, sharding) -> jax.Array:
@@ -549,9 +402,9 @@ def parallel_deflate(data: bytes | None, mesh: Mesh, block_size: int = 32768,
     global histogram with on-device package-merge, then a shared
     length-limited table pair packs every device's token shard.
     ``dynamic=False`` keeps the single-phase fixed-Huffman step.
-    ``turbo=True`` runs the flagship profile under the mesh: two-phase
-    matcher + Pallas lock-step selection + scatter-free pack, emitting
-    kernel-decodable structure (512 B anchors, 4 KiB resets, 9-bit
+    ``turbo=True`` runs the turbo profile under the mesh: two-phase
+    matcher + lazy selection with split far matches + scatter-free pack,
+    emitting lane-decodable structure (512 B anchors, 4 KiB resets, 9-bit
     shared tables); ``with_index=True`` additionally returns the
     StreamIndex that feeds ``parallel_inflate``.
 
@@ -752,17 +605,14 @@ def parallel_inflate(data: bytes, index, mesh: Mesh) -> bytes:
     """Block-parallel inflate of an indexed stream across the mesh.
 
     Turbo-profile streams (shared 9-bit tables, 512 B anchors, 4 KiB
-    resets) and wide-profile streams (per-block 15-bit tables, 128 B
-    anchors — this encoder's default levels) dispatch to their sharded
-    Pallas lock-step pipelines; other indexed streams use the general XLA
-    decode/resolve kernels."""
-    if getattr(index, "turbo", False):
-        return parallel_inflate_turbo(data, index, mesh)
-    if (getattr(index, "wide", False)
+    resets) and default-profile streams (per-block 15-bit tables, 128 B
+    anchors) take the sharded anchor-lane pipeline; other indexed streams
+    use the general XLA decode/resolve kernels."""
+    if ((getattr(index, "turbo", False) or getattr(index, "wide", False))
             and getattr(index, "self_contained", True)
             and any(b.btype != C.BTYPE_STORED and b.out_len
                     for b in index.blocks)):
-        return parallel_inflate_wide(data, index, mesh)
+        return parallel_inflate_lanes(data, index, mesh)
     from ..codec.inflate_pipeline import (
         _Stream, _block_code_lengths, _bucket, _index_lanes,
     )

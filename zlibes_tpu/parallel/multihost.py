@@ -1,16 +1,14 @@
 """Multi-host runtime glue (SURVEY.md §2 "Multi-host runtime").
 
 One process per host, ``jax.distributed.initialize``, then the same
-block-parallel codec runs over the global mesh: collectives ride ICI
-within a slice and DCN across hosts — the code path is identical, the
-mesh is just bigger.  On a single machine this module is exercised with
-the virtual CPU mesh (the driver's ``dryrun_multichip``); a real pod run
-only changes ``initialize()`` arguments.
+block-parallel codec runs over the global mesh — the code path is
+identical, the mesh is just bigger.  On a single machine this module is
+exercised with the virtual CPU mesh (``dryrun_multichip``).
 
-Typical pod usage (one process per host):
+Typical usage (one process per host):
 
     from zlibes_tpu.parallel import multihost
-    multihost.initialize()            # env-driven (TPU pods auto-detect)
+    multihost.initialize(addr, n, i)  # coordinator, process count, rank
     mesh = multihost.global_mesh()
     comp = parallel_deflate(data, mesh)   # each host feeds its shard
 """
@@ -26,9 +24,8 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> None:
     """Bring up the multi-process runtime (idempotent).
 
-    With no arguments, relies on the platform's auto-detection (TPU pods
-    populate the coordinator env vars).  Explicit arguments support
-    CPU/GPU multi-process testing.
+    With no arguments, relies on the platform's auto-detection of a
+    cluster; on machines without one, pass all three arguments.
     """
     try:
         jax.distributed.initialize(

@@ -361,7 +361,7 @@ bool plausible_header(const uint8_t* data, size_t nbits, size_t bit) {
     // zero-length stored blocks are real: they are this encoder's own
     // byte-align sync blocks and zlib's Z_SYNC_FLUSH/Z_FULL_FLUSH markers,
     // and span boundaries land on them on exactly the flush-marked streams
-    // the parallel scan targets (ADVICE r4).  Their 32 header bits carry
+    // the parallel scan targets.  Their 32 header bits carry
     // no signal, so chain the check: require a plausible FOLLOWING header
     // to keep the false-positive rate down.
     size_t next_bit = (byte + 4) * 8;
@@ -606,7 +606,7 @@ namespace {
 
 // token-range resolve shared by zresolve and the pipelined decoder;
 // advances *o and folds the produced bytes into a running Adler-32
-// (same cache-hot pass — VERDICT r4 #4: scan, resolve and checksum were
+// (same cache-hot pass — scan, resolve and checksum were
 // three sequential whole-output passes)
 int resolve_range(const int32_t* toks_val, const int32_t* toks_dist,
                   int64_t t0, int64_t t1, uint8_t* out, int64_t out_cap,
@@ -728,7 +728,7 @@ int scan_parallel_impl(const uint8_t* data, int64_t nbytes,
   // buffers are released as soon as it is spliced or rescanned: the
   // speculative arrays cost ~24 bytes per compressed byte, so scanning
   // every span of a multi-GB stream at once would transiently allocate
-  // tens of GB (ADVICE r4).  Peak memory is O(wave * span_bytes) — with
+  // tens of GB.  Peak memory is O(wave * span_bytes) — with
   // the 8 MiB span cap (native.py), <= ~770 MB/worker worst case.  Four
   // spans per worker keep the pool busy across the merge barrier (two
   // per worker measurably idled it back to serial speed).
@@ -868,10 +868,7 @@ int zscan_parallel(const uint8_t* data, int64_t nbytes, int64_t bit_offset,
 // Fused pipelined decode: the wave-scan runs while a resolver thread
 // trails the merge frontier, expanding tokens into ``out`` and folding
 // the Adler-32 of the produced bytes into the same cache-hot pass
-// (VERDICT r4 #4 — scan, LZ resolve and checksum used to be three
-// sequential whole-output passes; the 32 KiB back-reference window only
-// ever points at already-resolved output, so the resolver can trail the
-// scan at any distance).  ``out`` may be pre-seeded with ``prefix_len``
+//.  ``out`` may be pre-seeded with ``prefix_len``
 // dictionary bytes.  Returns Z_OK, a scan error, Z_ERR_CORRUPT, or -9
 // when out_cap is too small (caller grows and retries).
 int zdecode_parallel(const uint8_t* data, int64_t nbytes, int64_t bit_offset,

@@ -23,6 +23,13 @@ BLOCK_MAX_BUFFER_LEN = 131072
 # 32 KiB LZ77 window (RFC 1951 §2; reference src/lz77.ts:49).
 WINDOW_SIZE = 32768
 
+# StreamIndex decode-lane geometry (sidecar format, not RFC): default-
+# profile indexes anchor the first token at-or-after every 128 B of block
+# output; turbo indexes anchor every 512 B segment start plus the first
+# token at-or-after its middle (byte 256).
+WIDE_ANCHOR_SPAN = 128
+TURBO_SEG_SPAN = 512
+
 # Maximum match length / minimum match length (RFC 1951 §3.2.5).
 MAX_MATCH = 258
 MIN_MATCH = 3

@@ -1,9 +1,9 @@
 """Pure-Python/NumPy reference model of the RFC 1950/1951 codec.
 
-This is the *semantic spec* for the TPU kernels (SURVEY.md §7 P0): a slow,
+This is the *semantic spec* for the device kernels (SURVEY.md §7 P0): a slow,
 readable, sequential implementation of full inflate and deflate whose
 behavior is validated against CPython's ``zlib`` and against the reference
-project's golden fixtures.  The TPU pipelines in ``zlibes_tpu.ops`` /
+project's golden fixtures.  The device pipelines in ``zlibes_tpu.ops`` /
 ``zlibes_tpu.codec`` are diffed against this model, never against the
 reference's TypeScript.
 
@@ -254,7 +254,7 @@ def _decode_symbol(br: BitReader, table: DecodeTable) -> int:
 def read_dynamic_code_lengths(br: BitReader) -> tuple[np.ndarray, np.ndarray]:
     """Parse a dynamic block header (RFC 1951 §3.2.7) → code-length arrays.
 
-    Shared by the reference model and the TPU pipeline's host-side header
+    Shared by the reference model and the device pipeline's host-side header
     parser (headers are tiny; payload decode is the device's job).
     """
     hlit = br.read_bits(5) + 257
@@ -321,7 +321,7 @@ class StreamIndex:
 
     Anchors are (bit offset, output offset) pairs recorded at token
     boundaries roughly every ``anchor_every`` output bytes; they are the
-    decode lanes of the TPU inflate path.  The first anchor of every
+    decode lanes of the device inflate path.  The first anchor of every
     compressed block sits at its payload start.
     """
 
@@ -341,8 +341,8 @@ class StreamIndex:
     wide: bool = False  # DEFAULT-profile device-decode anchors: one anchor
     # per 128 B of output inside every coded block (uniform; an anchor
     # repeats when no token starts in its 128-B sub-span).  Fuel for the
-    # two-level-table Pallas decoder (ops/wide_kernel.py) — the wire
-    # format is untouched, anchors are pure sidecar metadata
+    # lane decoder (ops/lane_decode.py) — the wire format is untouched,
+    # anchors are pure sidecar metadata
 
     @property
     def total_out(self) -> int:

@@ -1,18 +1,28 @@
 """Persistent XLA compilation cache setup.
 
-The codec compiles one program per (lanes, tokens, table-width) bucket;
-first-compile on the remote-compile path is tens of seconds.  A persistent
-on-disk cache makes every process after the first start warm.
+The codec compiles one program per (lanes, tokens, table-width) bucket,
+and a cold GPU compile of the matcher and decode programs takes seconds
+to minutes.  A persistent on-disk cache lets every later process start
+warm.
 """
 from __future__ import annotations
 
 import os
+from pathlib import Path
 
-_DEFAULT_DIR = os.path.expanduser("~/.cache/zlibes_tpu/xla")
+# inside the checkout (listed in .gitignore): the cache path is part of
+# the cache key, so it must not move between runs
+DEFAULT_DIR = str(Path(__file__).resolve().parents[2] / ".jax_cache")
 _done = False
 
 
-def enable_persistent_cache(path: str | None = None) -> None:
+def cache_dir() -> str:
+    """``JAX_COMPILATION_CACHE_DIR`` when set, else the checkout's own
+    ``.jax_cache`` directory."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or DEFAULT_DIR
+
+
+def enable_persistent_cache() -> None:
     """Enable the on-disk cache for accelerator backends.
 
     Deliberately skipped for CPU: XLA:CPU AOT cache entries are
@@ -24,16 +34,10 @@ def enable_persistent_cache(path: str | None = None) -> None:
     _done = True
     import jax
 
-    try:
-        if jax.default_backend() == "cpu":
-            return
-    except Exception:
+    if jax.default_backend() == "cpu":
         return
-    cache_dir = path or os.environ.get("JAX_COMPILATION_CACHE_DIR") or _DEFAULT_DIR
-    os.makedirs(cache_dir, exist_ok=True)
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    except Exception:
-        pass  # older jax without these options
+    path = cache_dir()
+    os.makedirs(path, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
